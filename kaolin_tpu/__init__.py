@@ -1,13 +1,14 @@
-"""kaolin_tpu — a TPU-native 3D deep learning framework in JAX.
+"""kaolin_tpu — a 3D deep learning framework in JAX.
 
-A from-scratch re-design of the capabilities of NVIDIA Kaolin v0.14.0
-(reference: /root/reference) for TPU hardware: differentiable rasterization
-(DIB-R), volumetric rendering (DefTet), structured point clouds (SPC) with
-octree ray tracing and sparse convolutions, a differentiable camera API,
-SH/SG lighting, mesh/pointcloud/voxelgrid ops and conversions, 3D metrics,
-dataset I/O, training checkpoints (Timelapse) and visualization.
+A from-scratch re-design of the capabilities of NVIDIA Kaolin v0.14.0 in
+JAX, run on NVIDIA GPUs (and on the CPU for tests): differentiable
+rasterization (DIB-R), volumetric rendering (DefTet), structured point
+clouds (SPC) with octree ray tracing and sparse convolutions, a
+differentiable camera API, SH/SG lighting, mesh/pointcloud/voxelgrid ops
+and conversions, 3D metrics, dataset I/O, training checkpoints
+(Timelapse) and visualization.
 
-Compute path: jax / XLA / Pallas.  Batched containers are pytrees; CUDA
+Compute path: jax / XLA / Pallas (Triton route for the DIB-R kernels).  Batched containers are pytrees; CUDA
 autograd Functions become `jax.custom_vjp` or stop-grad-selection +
 differentiable-epilogue ops; CUB sort/scan become `lax.sort` /
 `associative_scan` / `segment_sum`; atomics become scatter-adds.

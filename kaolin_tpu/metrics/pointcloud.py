@@ -2,7 +2,7 @@
 
 Parity: ``kaolin/metrics/pointcloud.py`` (reference).
 
-TPU design: the CUDA brute-force kernel with shared-memory tiling
+Design: the CUDA brute-force kernel with shared-memory tiling
 (``csrc/metrics/sided_distance_cuda.cu:53``) becomes a chunked ``(P1, P2)``
 pairwise-distance sweep.  The min/argmin selection is non-differentiable; the
 distance is recomputed differentiably on the selected pairs so the backward

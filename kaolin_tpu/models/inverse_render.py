@@ -17,6 +17,8 @@ import jax.numpy as jnp
 from kaolin_tpu.ops import mesh as mesh_ops
 from kaolin_tpu.render import camera as camera_fns
 from kaolin_tpu.render import mesh as mesh_render
+from kaolin_tpu.render.mesh import _fused
+from kaolin_tpu.render.mesh.rasterization import _resolve_backend
 
 __all__ = ['InverseRenderParams', 'CameraViews', 'make_views',
            'render_views', 'render_loss', 'init_params',
@@ -78,34 +80,34 @@ def _prepare(params, views, faces):
 
 def compute_selection(params: InverseRenderParams, views: CameraViews,
                       faces, height, width, backend='auto', boxlen=0.02,
-                      knum=30, sigmainv=7000.):
-    """Run both non-differentiable selection passes (z-buffer + soft-mask)
-    as standalone compiled programs.
+                      knum=30, sigmainv=7000., with_soft_mask=True):
+    """Run both non-differentiable selection passes (z-buffer + soft-mask).
 
-    Keeping these out of the training-step jit keeps each XLA program
-    small (fast [re]compiles) and lets the selection result be reused.
+    Run standalone, it keeps each XLA program small (fast [re]compiles)
+    and lets the selection result be reused; :func:`render_views` calls it
+    when no selection is given.
 
     Returns:
         (face_idx (B, H, W), aux) where ``aux`` is the soft-mask selection
-        state: a (B, H, W, knum) k-buffer for the 'jnp' backend, or a
+        state: a (B, H, W, knum) k-buffer for the 'jnp' backend (None
+        without the soft mask), or a
         :class:`~kaolin_tpu.render.mesh.FusedSelection` for 'fused'
         (both accepted by ``dibr_soft_mask(kbuf=...)``).
     """
-    from kaolin_tpu.render.mesh.rasterization import _resolve_backend
     face_vertices_camera, face_vertices_image, face_normals = \
         jax.lax.stop_gradient(_prepare(params, views, faces))
-    backend = _resolve_backend(backend, height, width)
-    if backend == 'fused':
-        sel = mesh_render.fused_selection(
+    if _resolve_backend(backend) == 'fused':
+        sel = _fused.fused_selection(
             face_vertices_camera[..., 2], face_vertices_image,
             face_normals[..., 2] >= 0., height, width,
-            boxlen=boxlen, sigmainv=sigmainv)
+            boxlen=boxlen, sigmainv=sigmainv, with_softmask=with_soft_mask)
         return sel.face_idx, sel
     face_idx = mesh_render.rasterize_selection(
         height, width, face_vertices_camera[..., 2], face_vertices_image,
         valid_faces=face_normals[..., 2] >= 0., backend=backend)
     kbuf = mesh_render.dibr_soft_mask_select(
-        face_vertices_image, face_idx, boxlen=boxlen, knum=knum)
+        face_vertices_image, face_idx, boxlen=boxlen,
+        knum=knum) if with_soft_mask else None
     return face_idx, kbuf
 
 
@@ -116,7 +118,9 @@ def render_views(params: InverseRenderParams, views: CameraViews, faces,
 
     Mirrors the reference DIB-R tutorial pipeline (call stack SURVEY.md
     §3.1): prepare_vertices -> dibr_rasterization(uvs, normals) ->
-    texture_mapping + spherical_harmonic_lighting.
+    texture_mapping + spherical_harmonic_lighting.  With the 'fused'
+    backend one selection pass yields both the z-buffer winner and the
+    soft-mask product.
 
     Args:
         params: model parameters.
@@ -124,6 +128,8 @@ def render_views(params: InverseRenderParams, views: CameraViews, faces,
         faces: (F, 3) int array.
         face_uvs: (F, 3, 2) per-face-corner uvs.
         height, width: image size.
+        selection: ``(face_idx, aux)`` from :func:`compute_selection`;
+            computed here with ``backend`` when None.
 
     Returns:
         (images (B, H, W, 3), soft_mask (B, H, W), face_idx (B, H, W)).
@@ -135,12 +141,14 @@ def render_views(params: InverseRenderParams, views: CameraViews, faces,
     face_normals_corner = jnp.broadcast_to(
         face_normals[:, :, None, :],
         face_normals.shape[:2] + (3, 3))
-    precomputed_face_idx = None if selection is None else selection[0]
+    if selection is None:
+        selection = compute_selection(
+            params, views, faces, height, width, backend=backend, knum=knum,
+            sigmainv=sigmainv, with_soft_mask=with_soft_mask)
     (uv_map, normal_map), face_idx = mesh_render.rasterize(
         height, width, face_vertices_camera[..., 2],
         face_vertices_image, [face_uvs_b, face_normals_corner],
-        valid_faces=face_normals[..., 2] >= 0., backend=backend,
-        precomputed_face_idx=precomputed_face_idx)
+        precomputed_face_idx=selection[0])
     texture = jnp.broadcast_to(params.texture_map[None],
                                (B,) + params.texture_map.shape)
     albedo = mesh_render.texture_mapping(uv_map, texture, mode='bilinear')
@@ -152,7 +160,7 @@ def render_views(params: InverseRenderParams, views: CameraViews, faces,
     if with_soft_mask:
         soft_mask = mesh_render.dibr_soft_mask(
             face_vertices_image, face_idx, sigmainv=sigmainv, knum=knum,
-            kbuf=None if selection is None else selection[1])
+            kbuf=selection[1])
     else:
         soft_mask = (face_idx >= 0).astype(images.dtype)
     return images, soft_mask, face_idx

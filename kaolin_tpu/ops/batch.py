@@ -1,6 +1,6 @@
 """Batched tensor layouts: packed and padded.
 
-TPU-native re-design of the reference batching layer (``kaolin/ops/batch.py``).
+Re-design of the reference batching layer (``kaolin/ops/batch.py``).
 
 Two batched layouts for ragged collections of tensors:
 
@@ -10,7 +10,7 @@ Two batched layouts for ragged collections of tensors:
 * **padded**: sub-tensors stacked into one dense array, padded up to
   ``max_shape`` with ``padding_value``.
 
-Design notes (TPU-first):
+Design notes:
 
 * ``shape_per_tensor`` / ``first_idx`` / ``numel_per_tensor`` are **host
   numpy int64 arrays**, not device arrays.  Under ``jax.jit`` all shapes must

@@ -7,7 +7,7 @@ owns the up-to-3 iso vertices on its "far" edges (6, 7, 11), so output
 vertices are deduplicated across cells and faces index vertices through
 neighbour-cell offsets.
 
-TPU-first redesign (SURVEY.md A.3): instead of the reference's
+Redesign (SURVEY.md A.3): instead of the reference's
 classify / CUB-scan / host-readback / compact / generate pipeline
 (``unbatched_mcube_cuda.cu:550-637``), everything is one static-shaped
 XLA program: classify all cells (vectorized table lookups), exclusive

@@ -50,14 +50,12 @@ def trianglemeshes_to_voxelgrids(vertices, faces, resolution, origin=None,
 def unbatched_mesh_to_spc_device(face_vertices, level, cap=2 ** 21):
     """Device-side (jit-able) variant of :func:`unbatched_mesh_to_spc`.
 
-    Runs the full coarse-to-fine SAT pipeline on the TPU with static
+    Runs the full coarse-to-fine SAT pipeline on the device with static
     shapes (levels <= 15) and trims the padded outputs on host — output
     parity with the host builder is exact (see tests/test_spc_device.py).
 
-    Measured at level 10 on fox.obj (10k faces -> 992k voxels, TPU
-    v5e): 5.0 s/build warm vs 23 s for the host builder, but ~95 s of
-    one-time XLA compile.  Use this variant when building many octrees
-    (e.g. a deforming mesh each training step); the host builder stays
+    Use this variant when building many octrees (e.g. a deforming mesh
+    each training step); the host builder stays
     the default for one-shot conversions and keeps the octree bytes
     host-side for :func:`~kaolin_tpu.ops.spc.scan_octrees`.
 

@@ -1,10 +1,8 @@
-"""TPU-fast row gather/scatter primitives.
+"""Flat row gather/scatter primitives.
 
-XLA on TPU lowers *batched* gathers (vmap of ``table[idx]``, i.e. gathers
-with operand batching dims) and autodiff-generated scatter compositions to
-dramatically slower code than plain flat row gathers/scatters (measured
-~150x on a v5e for the DIB-R epilogue shapes).  Every hot gather in the
-render stack therefore goes through these helpers:
+Every hot gather in the render stack goes through these helpers, which
+keep the compiled HLO a plain rank-2 row gather and its transpose a plain
+row scatter-add:
 
 * batch dims are flattened into the row index (``b * N + i``) so the
   compiled HLO is always a rank-2 row gather;
@@ -51,7 +49,7 @@ def gather_rows(table, idx):
 
     Returns:
         ``(P, D)``; gradient w.r.t. ``table`` is a hand-written in-place
-        scatter-add (fast on TPU), no gradient w.r.t. ``idx``.
+        scatter-add, no gradient w.r.t. ``idx``.
     """
     return table[idx]
 

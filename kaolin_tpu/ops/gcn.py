@@ -6,7 +6,10 @@ Parity: ``kaolin/ops/gcn.py`` (reference).  Sparse adjacency is a
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+try:
+    import flax.linen as nn
+except ImportError:  # optional: only the layer classes need flax
+    nn = None
 from jax.experimental import sparse as jsparse
 
 __all__ = ['sparse_bmm', 'normalize_adj', 'GraphConv']
@@ -42,38 +45,44 @@ def normalize_adj(adj):
     return adj / norm
 
 
-class GraphConv(nn.Module):
-    """Graph convolution layer ``D^-1 A H W (+ H W_self)``.
+if nn is None:
+    def _needs_flax(*args, **kwargs):
+        raise ImportError('this layer needs flax')
 
-    Parity: ``kaolin/ops/gcn.py:80``.
+    GraphConv = _needs_flax
+else:
+    class GraphConv(nn.Module):
+        """Graph convolution layer ``D^-1 A H W (+ H W_self)``.
 
-    Attributes:
-        output_dim: output feature dim.
-        self_layer: add a separate self-feature linear layer.
-        bias: add bias to the linear layers.
-    """
-    output_dim: int
-    self_layer: bool = True
-    use_bias: bool = True
+        Parity: ``kaolin/ops/gcn.py:80``.
 
-    @nn.compact
-    def __call__(self, node_feat, adj, normalize_adj=True):
-        h = nn.Dense(self.output_dim, use_bias=self.use_bias,
-                     kernel_init=nn.initializers.xavier_uniform(),
-                     name='linear')(node_feat)
-        if _is_sparse(adj):
-            result = sparse_bmm(adj, h)
-            if normalize_adj:
-                norm = adj @ jnp.ones((adj.shape[0], 1))
-                result = result / norm
-        else:
-            result = jnp.matmul(adj, h)
-            if normalize_adj:
-                norm = jnp.matmul(adj, jnp.ones((adj.shape[0], 1)))
-                result = result / norm
-        if self.self_layer:
-            result = result + nn.Dense(
-                self.output_dim, use_bias=self.use_bias,
-                kernel_init=nn.initializers.xavier_uniform(),
-                name='linear_self')(node_feat)
-        return result
+        Attributes:
+            output_dim: output feature dim.
+            self_layer: add a separate self-feature linear layer.
+            bias: add bias to the linear layers.
+        """
+        output_dim: int
+        self_layer: bool = True
+        use_bias: bool = True
+
+        @nn.compact
+        def __call__(self, node_feat, adj, normalize_adj=True):
+            h = nn.Dense(self.output_dim, use_bias=self.use_bias,
+                         kernel_init=nn.initializers.xavier_uniform(),
+                         name='linear')(node_feat)
+            if _is_sparse(adj):
+                result = sparse_bmm(adj, h)
+                if normalize_adj:
+                    norm = adj @ jnp.ones((adj.shape[0], 1))
+                    result = result / norm
+            else:
+                result = jnp.matmul(adj, h)
+                if normalize_adj:
+                    norm = jnp.matmul(adj, jnp.ones((adj.shape[0], 1)))
+                    result = result / norm
+            if self.self_layer:
+                result = result + nn.Dense(
+                    self.output_dim, use_bias=self.use_bias,
+                    kernel_init=nn.initializers.xavier_uniform(),
+                    name='linear_self')(node_feat)
+            return result

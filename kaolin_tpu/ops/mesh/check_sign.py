@@ -1,9 +1,10 @@
 """Point-in-watertight-mesh test (ray parity).
 
 Parity: ``kaolin/ops/mesh/check_sign.py`` (reference).  The reference has a
-CUDA per-(point, triangle) crossing kernel and a CPU triangle-hash path; on
-TPU a single vectorized parity count over (point-chunk × triangles) replaces
-both (brute force maps well to the VPU; the 2D hash is a CPU-cache trick).
+CUDA per-(point, triangle) crossing kernel and a CPU triangle-hash path; here
+a single vectorized parity count over (point-chunk × triangles) replaces
+both (brute force maps well to vector hardware; the 2D hash is a CPU-cache
+trick).
 """
 
 import math
@@ -100,7 +101,7 @@ def check_sign(verts, faces, points, hash_resolution=512, chunk_size=2048,
     """Check whether points are inside watertight triangle meshes.
 
     Parity: ``kaolin/ops/mesh/check_sign.py:61``.  ``hash_resolution`` is
-    accepted for API compatibility (the TPU path needs no spatial hash).
+    accepted for API compatibility (this path needs no spatial hash).
 
     Args:
         verts: ``(B, V, 3)``.

@@ -32,8 +32,7 @@ def index_vertices_by_faces(vertices_features, faces):
     if vertices_features.ndim != 3:
         raise ValueError(
             f"vertices_features must be (B, V, D), got {vertices_features.shape}")
-    # flat row gather: batched gathers (and their scatter transposes in the
-    # backward) lower ~150x slower on TPU — see kaolin_tpu/ops/gather.py
+    # flat row gather (kaolin_tpu/ops/gather.py)
     from kaolin_tpu.ops.gather import flat_index, gather_rows
     B, V, D = vertices_features.shape
     faces = jnp.asarray(faces)

@@ -2,7 +2,7 @@
 
 Parity: ``kaolin/ops/mesh/trianglemesh.py`` (reference).
 
-TPU-first notes:
+Design notes:
 
 * Sampling accepts an explicit ``key=`` (jax.random key) so it is jit-able
   (`jax.random.categorical` replaces ``torch.multinomial``); without a key it

@@ -3,12 +3,12 @@
 Parity: ``kaolin/ops/spc/convolution.py`` + CUDA kernels
 ``kaolin/csrc/ops/spc/convolution_cuda.cu`` (reference).
 
-TPU-native design (SURVEY.md A.2): the CUDA pipeline builds per-tap
+Design (SURVEY.md A.2): the CUDA pipeline builds per-tap
 kernel maps with a scan + compaction and host-synced sizes, then runs
 gather-matmul-scatter per tap.  Here neighbor indices come from the
 vectorized ``identify`` walk (shared with :func:`unbatched_query`), kept
 dense as a (K, N_out) index array with a miss mask — masked
-gather + per-tap matmul + sum runs on the MXU with no host round-trip,
+gather + per-tap matmul + sum runs with no host round-trip,
 and autodiff yields exactly the reference backward (transposed maps).
 """
 
@@ -18,7 +18,10 @@ from typing import Optional
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+try:
+    import flax.linen as nn
+except ImportError:  # optional: only the layer classes need flax
+    nn = None
 
 from kaolin_tpu.ops.spc.spc import unbatched_query, \
     unbatched_get_level_points
@@ -175,64 +178,71 @@ def conv_transpose3d(octrees, point_hierarchies, level, pyramids, exsum,
     return out, int(out_level)
 
 
-class Conv3d(nn.Module):
-    """flax module wrapping :func:`conv3d`.
+if nn is None:
+    def _needs_flax(*args, **kwargs):
+        raise ImportError('this layer needs flax')
 
-    Parity: ``kaolin/ops/spc/convolution.py:140``.
+    Conv3d = _needs_flax
+    ConvTranspose3d = _needs_flax
+else:
+    class Conv3d(nn.Module):
+        """flax module wrapping :func:`conv3d`.
 
-    Attributes:
-        in_channels / out_channels: feature dims.
-        kernel_vectors: (K, 3) numpy int offsets (static).
-        jump: level delta.
-        use_bias: add bias.
-    """
-    in_channels: int
-    out_channels: int
-    kernel_vectors: tuple  # tuple of (x, y, z) tuples for hashability
-    jump: int = 0
-    use_bias: bool = True
+        Parity: ``kaolin/ops/spc/convolution.py:140``.
 
-    @nn.compact
-    def __call__(self, octrees, point_hierarchies, level, pyramids, exsum,
-                 input, **kwargs):
-        kv = np.asarray(self.kernel_vectors, dtype=np.int32)
-        kdim = kv.shape[0]
-        scale = math.sqrt(2.0 / (self.in_channels * kdim))
-        weight = self.param(
-            'weight',
-            lambda key: jax.random.normal(
-                key, (kdim, self.in_channels, self.out_channels)) * scale)
-        bias = (self.param('bias', nn.initializers.zeros,
-                           (self.out_channels,))
-                if self.use_bias else None)
-        return conv3d(octrees, point_hierarchies, level, pyramids, exsum,
-                      input, weight, kv, self.jump, bias, **kwargs)
+        Attributes:
+            in_channels / out_channels: feature dims.
+            kernel_vectors: (K, 3) numpy int offsets (static).
+            jump: level delta.
+            use_bias: add bias.
+        """
+        in_channels: int
+        out_channels: int
+        kernel_vectors: tuple  # tuple of (x, y, z) tuples for hashability
+        jump: int = 0
+        use_bias: bool = True
+
+        @nn.compact
+        def __call__(self, octrees, point_hierarchies, level, pyramids, exsum,
+                     input, **kwargs):
+            kv = np.asarray(self.kernel_vectors, dtype=np.int32)
+            kdim = kv.shape[0]
+            scale = math.sqrt(2.0 / (self.in_channels * kdim))
+            weight = self.param(
+                'weight',
+                lambda key: jax.random.normal(
+                    key, (kdim, self.in_channels, self.out_channels)) * scale)
+            bias = (self.param('bias', nn.initializers.zeros,
+                               (self.out_channels,))
+                    if self.use_bias else None)
+            return conv3d(octrees, point_hierarchies, level, pyramids, exsum,
+                          input, weight, kv, self.jump, bias, **kwargs)
 
 
-class ConvTranspose3d(nn.Module):
-    """flax module wrapping :func:`conv_transpose3d`.
+    class ConvTranspose3d(nn.Module):
+        """flax module wrapping :func:`conv_transpose3d`.
 
-    Parity: ``kaolin/ops/spc/convolution.py:358``.
-    """
-    in_channels: int
-    out_channels: int
-    kernel_vectors: tuple
-    jump: int = 0
-    use_bias: bool = True
+        Parity: ``kaolin/ops/spc/convolution.py:358``.
+        """
+        in_channels: int
+        out_channels: int
+        kernel_vectors: tuple
+        jump: int = 0
+        use_bias: bool = True
 
-    @nn.compact
-    def __call__(self, octrees, point_hierarchies, level, pyramids, exsum,
-                 input, **kwargs):
-        kv = np.asarray(self.kernel_vectors, dtype=np.int32)
-        kdim = kv.shape[0]
-        scale = math.sqrt(2.0 / (self.in_channels * kdim))
-        weight = self.param(
-            'weight',
-            lambda key: jax.random.normal(
-                key, (kdim, self.in_channels, self.out_channels)) * scale)
-        bias = (self.param('bias', nn.initializers.zeros,
-                           (self.out_channels,))
-                if self.use_bias else None)
-        return conv_transpose3d(octrees, point_hierarchies, level, pyramids,
-                                exsum, input, weight, kv, self.jump, bias,
-                                **kwargs)
+        @nn.compact
+        def __call__(self, octrees, point_hierarchies, level, pyramids, exsum,
+                     input, **kwargs):
+            kv = np.asarray(self.kernel_vectors, dtype=np.int32)
+            kdim = kv.shape[0]
+            scale = math.sqrt(2.0 / (self.in_channels * kdim))
+            weight = self.param(
+                'weight',
+                lambda key: jax.random.normal(
+                    key, (kdim, self.in_channels, self.out_channels)) * scale)
+            bias = (self.param('bias', nn.initializers.zeros,
+                               (self.out_channels,))
+                    if self.use_bias else None)
+            return conv_transpose3d(octrees, point_hierarchies, level, pyramids,
+                                    exsum, input, weight, kv, self.jump, bias,
+                                    **kwargs)

@@ -74,8 +74,7 @@ def _morton2_parent(hi, lo):
 def _compact(keep, arrays, cap):
     """Order-preserving compaction of rows where ``keep`` is True.
 
-    Gather-only (cumsum + searchsorted): measured faster and more
-    fusion-friendly on TPU than scatter-based compaction.
+    Gather-only (cumsum + searchsorted), no scatter.
 
     Returns (compacted arrays padded to ``cap``, count, valid mask).
     """

@@ -3,7 +3,7 @@
 Parity: ``kaolin/ops/spc/spc.py`` + CUDA kernels
 ``kaolin/csrc/ops/spc/`` (reference).
 
-TPU-first split:
+Split:
 
 * octree **construction/scanning** (data-dependent shapes) is host numpy —
   these are build-time preprocessing steps (``scan_octrees.cu:34-114``,

@@ -1,8 +1,8 @@
 """uint8 bit manipulation for octree bytes.
 
 Parity: ``kaolin/ops/spc/uint8.py`` (reference).  The reference uses lookup
-tables; TPU-native uses ``jax.lax.population_count`` and shift/mask vector
-ops (int32 lanes).
+tables; here ``jax.lax.population_count`` and shift/mask vector
+ops (int32 lanes) do the work.
 """
 
 import jax

@@ -1,17 +1,16 @@
-"""Multi-host (multi-process) execution over DCN + ICI.
+"""Multi-host (multi-process) execution.
 
 The reference has no distributed layer at all (SURVEY.md §2.3 — no
-torch.distributed / NCCL anywhere); this is the TPU-native scale-out
-design for driver config #5 (multi-host inverse rendering: views
-sharded over all chips of all hosts, parameters replicated, gradient
-``psum`` riding ICI within a host and DCN across hosts).
+torch.distributed / NCCL anywhere); this is the scale-out design for
+driver config #5 (multi-host inverse rendering: views sharded over all
+devices of all hosts, parameters replicated, gradient ``psum`` within a
+host and across hosts).
 
 Usage (one call per process, before any jax computation):
 
     from kaolin_tpu.parallel import distributed as D
-    D.initialize()                       # TPU pods: auto-discovery
     D.initialize(coordinator_address="host0:1234",
-                 num_processes=2, process_id=i)   # CPU/GPU clusters
+                 num_processes=2, process_id=i)
     mesh = D.make_global_mesh()          # all devices, ('data',)
     views = D.host_local_array(mesh, per_host_views)  # global array
     step = multi_view_grad(loss_fn, mesh)             # parallel/sharding
@@ -35,8 +34,8 @@ def initialize(coordinator_address=None, num_processes=None,
                process_id=None, local_device_ids=None):
     """Connect this process to the cluster (``jax.distributed``).
 
-    On TPU pods all arguments are auto-discovered; on CPU/GPU clusters
-    pass them explicitly.  Idempotent: safe to call once per process.
+    On CPU/GPU clusters pass all arguments explicitly (nothing tells JAX
+    of the cluster).  Idempotent: safe to call once per process.
     """
     global _initialized
     if _initialized:
@@ -71,10 +70,10 @@ def make_global_mesh(axis_names=('data',), axis_shapes=None):
 
     With the default single ``'data'`` axis, devices are laid out
     process-major so that a view batch sharded on ``data`` keeps each
-    host's shard on its local chips: the gradient ``psum`` then reduces
-    over ICI first and crosses DCN only once per host pair.
+    host's shard on its local devices: the gradient ``psum`` then reduces
+    within a host first and crosses hosts only once per host pair.
 
-    For an explicit DCN/ICI split use
+    For an explicit host/device split use
     ``axis_names=('host', 'device'), axis_shapes=(num_processes, -1)``
     and shard batch-like axes over ``('host', 'device')``.
     """
@@ -96,8 +95,7 @@ def host_local_array(mesh, host_local_data, axis='data'):
 
     Each process passes only ITS slice of the global batch (leading
     axis); the result is a global array sharded over ``axis`` with no
-    cross-host transfer — the TPU-native replacement for a distributed
-    data loader.
+    cross-host transfer — the replacement for a distributed data loader.
     """
     sharding = NamedSharding(mesh, P(axis))
     return jax.tree_util.tree_map(

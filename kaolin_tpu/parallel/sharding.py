@@ -1,10 +1,10 @@
 """Device-mesh + sharding helpers for multi-chip rendering.
 
 The reference has no multi-GPU layer (SURVEY.md §2.3) — this module is the
-TPU-native scale-out design: rays / pixels / views are sharded over a
+scale-out design: rays / pixels / views are sharded over a
 ``jax.sharding.Mesh``; mesh/texture/lighting parameters are replicated and
-their gradients are ``psum``-reduced over ICI, overlapped with the backward
-pass by XLA.
+their gradients are ``psum``-reduced across devices, overlapped with the
+backward pass by XLA.
 """
 
 import functools
@@ -63,26 +63,19 @@ def multi_view_grad(loss_fn, mesh: Mesh, axis: str = 'data'):
 
     ``loss_fn(params, views) -> scalar`` is evaluated per shard of views
     (leading axis sharded over ``axis``); the total loss and parameter
-    gradients are psum-reduced over ICI.
+    gradients are psum-reduced across the mesh.
 
     Returns:
         ``fn(params, views) -> (loss, grads)`` with replicated outputs.
     """
-    try:
-        from jax import shard_map
-        _kw = {'check_vma': False}
-    except ImportError:  # jax < 0.8
-        from jax.experimental.shard_map import shard_map
-        _kw = {'check_rep': False}
-
     def local_loss(params, views):
         value, grads = jax.value_and_grad(loss_fn)(params, views)
         value = jax.lax.psum(value, axis)
         grads = jax.lax.psum(grads, axis)
         return value, grads
 
-    return shard_map(
+    return jax.shard_map(
         local_loss, mesh=mesh,
         in_specs=(P(), P(axis)),
         out_specs=(P(), P()),
-        **_kw)
+        check_vma=False)

@@ -16,22 +16,6 @@ from jax.sharding import PartitionSpec as P
 __all__ = ['tile_sharded_selection', 'tile_sharded_render_loss']
 
 
-def _shard_map():
-    try:
-        from jax import shard_map
-
-        def wrap(f, mesh, in_specs, out_specs):
-            return shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_vma=False)
-    except ImportError:  # jax < 0.8
-        from jax.experimental.shard_map import shard_map
-
-        def wrap(f, mesh, in_specs, out_specs):
-            return shard_map(f, mesh=mesh, in_specs=in_specs,
-                             out_specs=out_specs, check_rep=False)
-    return wrap
-
-
 def tile_sharded_selection(mesh, face_vertices_z, face_vertices_image,
                            valid_faces, height, width, tile_axis='tile',
                            multiplier=1000., eps=1e-8):
@@ -76,10 +60,9 @@ def tile_sharded_selection(mesh, face_vertices_z, face_vertices_image,
             (jax.lax.stop_gradient(fvz), jax.lax.stop_gradient(fvi),
              valid))
 
-    sharded = _shard_map()(
-        local, mesh,
-        in_specs=(P(), P(), P()),
-        out_specs=P(None, tile_axis, None))
+    sharded = jax.shard_map(
+        local, mesh=mesh, in_specs=(P(), P(), P()),
+        out_specs=P(None, tile_axis, None), check_vma=False)
     return sharded(face_vertices_z, fvi_scaled, valid_faces)
 
 
@@ -131,6 +114,40 @@ def tile_sharded_render_loss(mesh, params, views, faces, face_uvs,
     rows = height // ndev_t
     proj = views.camera_proj
 
+    def one_view(p, xs, ys, fvc, fvi_scaled, fn, t_img, t_mask):
+        """(L1 sum, IoU numerator, IoU denominator) of one view's slab."""
+        valid = fn[..., 2] >= 0.
+        face_idx = _selection_jnp(
+            jax.lax.stop_gradient(fvc[..., 2]),
+            jax.lax.stop_gradient(fvi_scaled), valid, xs, ys, height=rows,
+            width=width, eps=eps)[None]
+        fn_corner = jnp.broadcast_to(fn[:, None, :], fn.shape[:1] + (3, 3))
+        feats = jnp.concatenate([face_uvs, fn_corner], axis=-1)[None]
+        img_feats, _ = _interpolate_selected_batched(
+            face_idx, fvi_scaled[None], feats, xs, ys, eps)
+        albedo = texture_mapping(img_feats[..., :2], p.texture_map[None],
+                                 mode='bilinear')
+        lighting = spherical_harmonic_lighting(img_feats[..., 2:5],
+                                               p.sh_coeffs[None])
+        images = jnp.clip(albedo * jnp.clip(lighting, 0.)[..., None],
+                          0., 1.)
+        images = jnp.where((face_idx >= 0)[..., None], images, 0.)
+
+        # soft mask on the local slab
+        bboxes = jnp.concatenate(
+            [jnp.min(fvi_scaled, axis=-2) - boxlen * multiplier,
+             jnp.max(fvi_scaled, axis=-2) + boxlen * multiplier], axis=-1)
+        empty = face_idx < 0
+        kbuf = _soft_mask_select(jax.lax.stop_gradient(bboxes), empty[0],
+                                 xs, ys, height=rows, width=width,
+                                 knum=knum)[None]
+        soft_mask = _soft_mask_epilogue(
+            fvi_scaled[None], jax.lax.stop_gradient(kbuf), empty, xs, ys,
+            float(sigmainv), float(multiplier))[0]
+        mul = soft_mask * t_mask
+        return (jnp.sum(jnp.abs(images[0] - t_img)), jnp.sum(mul),
+                jnp.sum(soft_mask + t_mask - mul))
+
     def local(p, rot, trans, t_img, t_mask):
         ti = jax.lax.axis_index(tile_axis)
         B = rot.shape[0]
@@ -141,70 +158,25 @@ def tile_sharded_render_loss(mesh, params, views, faces, face_uvs,
             t_img, (0, ti * rows, 0, 0), (B, rows, width, 3))
         t_mask = jax.lax.dynamic_slice(
             t_mask, (0, ti * rows, 0), (B, rows, width))
-
-        v = M.CameraViews(rot, trans, proj)
-        fvc, fvi, fn = M._prepare(p, v, faces)
-        fvi_scaled = fvi * multiplier
-        valid = fn[..., 2] >= 0.
-
-        face_idx = jax.lax.map(
-            lambda ziv: _selection_jnp(
-                ziv[0], ziv[1], ziv[2], xs, ys, height=rows, width=width,
-                eps=eps),
-            (jax.lax.stop_gradient(fvc[..., 2]),
-             jax.lax.stop_gradient(fvi_scaled), valid))
-
-        face_uvs_b = jnp.broadcast_to(face_uvs[None],
-                                      (B,) + face_uvs.shape)
-        fn_corner = jnp.broadcast_to(fn[:, :, None, :],
-                                     fn.shape[:2] + (3, 3))
-        feats = jnp.concatenate([face_uvs_b, fn_corner], axis=-1)
-        img_feats, _ = _interpolate_selected_batched(
-            face_idx, fvi_scaled, feats, xs, ys, eps)
-        uv_map = img_feats[..., :2]
-        normal_map = img_feats[..., 2:5]
-        texture = jnp.broadcast_to(p.texture_map[None],
-                                   (B,) + p.texture_map.shape)
-        albedo = texture_mapping(uv_map, texture, mode='bilinear')
-        lighting = spherical_harmonic_lighting(
-            normal_map, jnp.broadcast_to(p.sh_coeffs[None], (B, 9)))
-        images = jnp.clip(albedo * jnp.clip(lighting, 0.)[..., None],
-                          0., 1.)
-        images = jnp.where((face_idx >= 0)[..., None], images, 0.)
-
-        # soft mask on the local slab
-        pts_min = jnp.min(fvi_scaled, axis=-2)
-        pts_max = jnp.max(fvi_scaled, axis=-2)
-        bboxes = jnp.concatenate([pts_min - boxlen * multiplier,
-                                  pts_max + boxlen * multiplier], axis=-1)
-        empty = face_idx < 0
-        kbuf = jax.lax.map(
-            lambda be: _soft_mask_select(be[0], be[1], xs, ys,
-                                         height=rows, width=width,
-                                         knum=knum),
-            (jax.lax.stop_gradient(bboxes), empty))
-        soft_mask = _soft_mask_epilogue(
-            fvi_scaled, jax.lax.stop_gradient(kbuf), empty, xs, ys,
-            float(sigmainv), float(multiplier))
+        fvc, fvi, fn = M._prepare(p, M.CameraViews(rot, trans, proj), faces)
+        # one view at a time bounds the (rows, width, knum) soft-mask
+        # intermediates to a single view
+        l1, iou_up, iou_down = jax.lax.map(
+            lambda a: one_view(p, xs, ys, *a),
+            (fvc, fvi * multiplier, fn, t_img, t_mask))
 
         # losses as pixel partial sums, reduced over the tile axis
-        l1_sum = jax.lax.psum(jnp.sum(jnp.abs(images - t_img)),
-                              tile_axis)
-        image_loss = l1_sum / (num_views * height * width * 3)
-        mul = soft_mask * t_mask
-        add = soft_mask + t_mask
-        iou_up = jax.lax.psum(
-            jnp.sum(mul.reshape(B, -1), axis=1), tile_axis)
-        iou_down = jax.lax.psum(
-            jnp.sum((add - mul).reshape(B, -1), axis=1), tile_axis)
-        iou = jnp.sum(iou_up / (iou_down + 1e-10))
+        image_loss = (jax.lax.psum(jnp.sum(l1), tile_axis)
+                      / (num_views * height * width * 3))
+        iou = jnp.sum(jax.lax.psum(iou_up, tile_axis)
+                      / (jax.lax.psum(iou_down, tile_axis) + 1e-10))
         mask_loss = 1.0 - jax.lax.psum(iou, data_axis) / num_views
         return jax.lax.psum(image_loss, data_axis) + mask_loss
 
-    sharded = _shard_map()(
-        local, mesh,
+    sharded = jax.shard_map(
+        local, mesh=mesh,
         in_specs=(P(), P(data_axis), P(data_axis), P(data_axis),
                   P(data_axis)),
-        out_specs=P())
+        out_specs=P(), check_vma=False)
     return sharded(params, views.camera_rot, views.camera_trans,
                    target_images, target_masks)

@@ -5,6 +5,7 @@ Parity: ``kaolin/render/camera/legacy.py`` (reference).
 
 from math import tan
 
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -30,7 +31,10 @@ def rotate_translate_points(points, camera_rot, camera_trans):
         ``(B, N, 3)``.
     """
     translated = points - camera_trans.reshape(-1, 1, 3)
-    return jnp.matmul(translated, jnp.swapaxes(camera_rot, 1, 2))
+    # full f32: a GPU would otherwise run this product in TF32, which moves
+    # projected vertices by a sizeable fraction of a pixel
+    return jnp.matmul(translated, jnp.swapaxes(camera_rot, 1, 2),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def generate_rotate_translate_matrices(camera_position, look_at,

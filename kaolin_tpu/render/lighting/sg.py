@@ -2,7 +2,7 @@
 
 Parity: ``kaolin/render/lighting/sg.py`` (reference).
 
-TPU note: the reference ships a fused CUDA kernel for
+Note: the reference ships a fused CUDA kernel for
 ``unbatched_reduced_sg_inner_product`` (``csrc/render/sg/
 unbatched_reduced_sg_inner_product_cuda.cu``) because the broadcast + sum
 materializes ``(num_sg, num_other, 3)`` in torch.  In XLA the broadcast,

@@ -1,5 +1,5 @@
 from kaolin_tpu.render.mesh.rasterization import (  # noqa: F401
-    rasterize, rasterize_selection, fused_backend_supported)
+    rasterize, rasterize_selection)
 from kaolin_tpu.render.mesh.dibr import (  # noqa: F401
     dibr_soft_mask, dibr_soft_mask_select, dibr_rasterization)
 from kaolin_tpu.render.mesh._fused import (  # noqa: F401

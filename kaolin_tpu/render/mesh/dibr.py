@@ -3,7 +3,7 @@
 Parity: ``kaolin/render/mesh/dibr.py`` + the CUDA kernels
 ``kaolin/csrc/render/mesh/dibr_soft_mask_cuda.cu`` (reference).
 
-TPU-native design (same split as :mod:`rasterization`):
+Design (same split as :mod:`rasterization`):
 
 1. **k-buffer selection pass** (non-differentiable): for each uncovered
    pixel, the first ``knum`` faces (in face order, matching the CUDA loop
@@ -44,11 +44,9 @@ def _soft_mask_select(face_bboxes, empty_pixel, xs, ys, height, width, knum,
 
     One ``top_k`` per pixel block over ALL faces at once: the first-k
     faces in face order (the CUDA loop order, ``dibr_soft_mask_cuda.cu:80``)
-    have the k largest keys ``F+1-fid`` among covered faces.  A chunked
-    running top_k merge is ~200x slower on TPU (many small sorts); the
-    single wide sort streams at full VPU speed.  ``lax.map`` (not vmap)
-    over pixel blocks keeps the (pixel_chunk, F) candidate matrix
-    VMEM/HBM-bounded.
+    have the k largest keys ``F+1-fid`` among covered faces.  ``lax.map``
+    (not vmap) over pixel blocks bounds the (pixel_chunk, F) candidate
+    matrix.
 
     Returns:
         (H, W, knum) int32 face indices, -1 padded.
@@ -131,9 +129,7 @@ def dibr_soft_mask_select(face_vertices_image, selected_face_idx,
     xs, ys = pixel_coords(H, W, multiplier,
                           dtype=face_vertices_image.dtype)
     empty = selected_face_idx < 0
-    # lax.map (sequential) over batch, NOT vmap: batching the inner
-    # lax.map + top_k lowers ~30x slower on TPU, and one mesh already
-    # saturates the chip.
+    # lax.map (sequential) over batch: one mesh already fills the device
     kbuf = jax.lax.map(
         lambda be: _soft_mask_select(be[0], be[1], xs, ys,
                                      height=H, width=W, knum=knum),
@@ -152,8 +148,8 @@ def _soft_mask_epilogue(fvi_scaled, kbuf, empty, xs, ys, sigmainv,
     (the tile-sharded path).  Returns (B, H, W) mask.
 
     ``custom_vjp``: the autodiff backward of the 6-branch min-distance
-    chain materializes dozens of (B, H, W, K) intermediates in HBM
-    (~7x slower than forward).  The hand-derived backward below — the
+    chain materializes dozens of (B, H, W, K) intermediates.  The
+    hand-derived backward below — the
     same k1/k2/k3-style algebra as the reference CUDA kernel
     (``dibr_soft_mask_cuda.cu:230-353``) — recomputes the distances in
     one fused elementwise pass, selects the argmin branch with masks,
@@ -249,9 +245,8 @@ def _soft_mask_epilogue_bwd(sigmainv, multiplier, res, g):
     # prob = exp(-inv * d) -> dL/dd = -inv * prob * dL/dprob
     dd = jnp.where(kbuf >= 0, -inv * prob * dprob, 0.)  # (B, H, W, K)
 
-    # accumulate the 6 coordinate grads as flat (B, H, W, K) components:
-    # a rank-3-update scatter ((N, 3, 2) rows) lowers ~6x slower on TPU
-    # than the flat (N, 6) row scatter below.
+    # accumulate the 6 coordinate grads as flat (B, H, W, K) components
+    # for one (N, 6) row scatter
     comp = [jnp.zeros_like(dd) for _ in range(6)]  # x0,y0,x1,y1,x2,y2
     edges = _soft_mask_edge_terms(fv, x0, y0)
     for e in range(3):
@@ -305,7 +300,7 @@ def dibr_soft_mask(face_vertices_image, selected_face_idx, sigmainv=7000,
         kbuf: precomputed selection — either the ``(B, H, W, knum)``
             k-buffer from :func:`dibr_soft_mask_select`, or a
             :class:`~kaolin_tpu.render.mesh._fused.FusedSelection` from
-            the fused TPU engine (uncapped product; ``knum`` ignored).
+            the fused engine (uncapped product; ``knum`` ignored).
 
     Returns:
         ``(B, H, W)`` soft mask in [0, 1].
@@ -344,7 +339,7 @@ def dibr_rasterization(height, width, face_vertices_z, face_vertices_image,
         (image_features, soft_mask, face_idx).
     """
     _multiplier = 1000. if multiplier is None else multiplier
-    backend = _resolve_backend(rast_backend, height, width)
+    backend = _resolve_backend(rast_backend)
     if backend == 'fused':
         # one fused selection pass yields BOTH the z-buffer winner and the
         # soft-mask product — the epilogues reuse it

@@ -3,8 +3,8 @@
 Parity: ``kaolin/render/mesh/rasterization.py`` + the CUDA kernels
 ``kaolin/csrc/render/mesh/rasterization_cuda.cu:43-442`` (reference).
 
-TPU-native design
------------------
+Design
+------
 The reference pairs a forward CUDA kernel (per-pixel loop over faces with a
 z-buffer) with a hand-derived analytic backward (k1/k2/k3 determinant
 algebra, atomics for the feature grads).  Here rasterization is split into:
@@ -12,7 +12,7 @@ algebra, atomics for the feature grads).  Here rasterization is split into:
 1. a **non-differentiable selection pass** computing the winning face per
    pixel (the z-buffer argmax — piecewise constant, so it carries no
    gradient).  Backends: ``'jnp'`` (chunked brute force, runs anywhere) and
-   ``'fused'`` (tile-binned Pallas TPU kernel, :mod:`._fused`).
+   ``'fused'`` (tile-binned Pallas kernels for the GPU, :mod:`._fused`).
 2. a **differentiable epilogue**: gather the selected face per pixel,
    recompute the normalized barycentric weights with the same
    ``copysign(eps)`` rule (``rasterization_cuda.cu:141-142``), and
@@ -32,20 +32,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-__all__ = ['rasterize', 'rasterize_selection', 'fused_backend_supported']
+__all__ = ['rasterize', 'rasterize_selection']
 
 
-def fused_backend_supported(height, width):
-    """Whether the 'fused' Pallas backend supports this image size.
-
-    Always true — the engine pads the tile grid internally and crops.
-    """
-    return height >= 1 and width >= 1
-
-
-def _resolve_backend(backend, height, width):
+def _resolve_backend(backend):
+    """'auto' -> the fused kernels on a GPU, the 'jnp' path elsewhere."""
     if backend == 'auto':
-        return 'fused' if jax.default_backend() == 'tpu' else 'jnp'
+        return 'fused' if jax.default_backend() == 'gpu' else 'jnp'
     return backend
 
 
@@ -176,11 +169,10 @@ def _interpolate_selected(face_idx, face_vertices_image_scaled, face_features,
 
 def _interpolate_selected_batched(face_idx, face_vertices_image_scaled,
                                   face_features, xs, ys, eps):
-    """Batched differentiable epilogue with TPU-fast flat row gathers.
+    """Batched differentiable epilogue with flat row gathers.
 
-    The batch dim is folded into the gather index (batched gathers lower
-    ~150x slower on TPU, see :mod:`kaolin_tpu.ops.gather`); the barycentric
-    math is identical to the unbatched version op for op.
+    The batch dim is folded into the gather index; the barycentric math is
+    identical to the unbatched version op for op.
 
     face_idx: (B, H, W) int32; fvi: (B, F, 3, 2); features (B, F, 3, C).
 
@@ -194,7 +186,7 @@ def _interpolate_selected_batched(face_idx, face_vertices_image_scaled,
     covered = (face_idx >= 0).reshape(-1)              # (B*H*W,)
     gidx = flat_index(jnp.maximum(face_idx, 0), F)
     # single combined gather: one scatter pass over the face table in the
-    # backward instead of two (each scatter op costs a table pass on TPU)
+    # backward instead of two
     combined = jnp.concatenate(
         [face_vertices_image_scaled.reshape(B * F, 6),
          face_features.reshape(B * F, 3 * C)], axis=-1)
@@ -231,14 +223,13 @@ def rasterize_selection(height, width, face_vertices_z, face_vertices_image,
     B, F = face_vertices_z.shape[:2]
     if valid_faces is None:
         valid_faces = jnp.ones((B, F), dtype=bool)
-    backend = _resolve_backend(backend, height, width)
+    backend = _resolve_backend(backend)
     fvi_scaled = face_vertices_image * multiplier
     xs, ys = pixel_coords(height, width, multiplier,
                           dtype=face_vertices_z.dtype)
     if backend == 'jnp':
-        # lax.map (sequential) over batch, NOT vmap: batching the inner
-        # pixel-block map lowers much slower on TPU, and one mesh already
-        # saturates the chip.
+        # lax.map (sequential) over batch: one mesh's pixel x face sweep
+        # already fills the device
         face_idx = jax.lax.map(
             lambda ziv: _selection_jnp(ziv[0], ziv[1], ziv[2], xs, ys,
                                        height=height, width=width, eps=eps),
@@ -263,8 +254,7 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
     """Differentiable rasterization of triangle meshes to feature images.
 
     Parity: ``kaolin/render/mesh/rasterization.py:390`` (the 'cuda' backend;
-    the OpenGL-based 'nvdiffrast' backends have no TPU analogue and are
-    replaced by 'pallas'/'jnp').
+    the OpenGL-based 'nvdiffrast' backends are replaced by 'fused'/'jnp').
 
     Args:
         height, width: output image size.
@@ -277,7 +267,7 @@ def rasterize(height, width, face_vertices_z, face_vertices_image,
         valid_faces: optional ``(B, F)`` bool mask.
         multiplier: coordinate scale to avoid numeric issues (default 1000).
         eps: barycentric normalization epsilon (default 1e-8).
-        backend: 'jnp', 'fused', or 'auto' (fused on TPU else jnp).
+        backend: 'jnp', 'fused', or 'auto' (fused on GPU else jnp).
         with_weights: also return the per-pixel barycentric weights.
 
     Returns:

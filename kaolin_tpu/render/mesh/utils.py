@@ -3,8 +3,6 @@
 Parity: ``kaolin/render/mesh/utils.py`` (reference).
 """
 
-import functools
-
 import jax
 import jax.numpy as jnp
 
@@ -38,16 +36,13 @@ def _flat_corner_idx(x, y, H, W, B, P):
     return (i00, i01, i10, i11), wx, wy
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
 def _bilinear_sample(tex_rows, x, y, hw):
-    """Bilinear sample of a channels-last texture table (TPU-fast).
+    """Bilinear sample of a channels-last texture table.
 
     tex_rows: (B*H*W, C); x, y: (B*P,) pixel coords (border-padded via
     index clipping, align_corners=False unnormalization done by caller).
-    ``hw`` = (H, W, B, P) static.
-
-    The backward is hand-written: autodiff's gather transpose emits
-    scatter compositions that lower ~300x slower on TPU.
+    ``hw`` = (H, W, B, P) static.  Autodiff gives the texture gradient as
+    scatter-adds of the four taps.
     """
     H, W, B, P = hw
     (i00, i01, i10, i11), wx, wy = _flat_corner_idx(x, y, H, W, B, P)
@@ -57,89 +52,6 @@ def _bilinear_sample(tex_rows, x, y, hw):
             + tex_rows[i01] * wx * (1 - wy)
             + tex_rows[i10] * (1 - wx) * wy
             + tex_rows[i11] * wx * wy)
-
-
-def _bilinear_sample_fwd(tex_rows, x, y, hw):
-    return _bilinear_sample(tex_rows, x, y, hw), (tex_rows, x, y)
-
-
-def _bilinear_sample_bwd(hw, res, g):
-    H, W, B, P = hw
-    tex_rows, x, y = res
-    (i00, i01, i10, i11), wx, wy = _flat_corner_idx(x, y, H, W, B, P)
-    wxc = wx[:, None]
-    wyc = wy[:, None]
-    dt = _tex_grad_mxu(g, x, y, H, W, B, P)
-    v00 = tex_rows[i00]
-    v01 = tex_rows[i01]
-    v10 = tex_rows[i10]
-    v11 = tex_rows[i11]
-    # d out / d x flows only through wx (floor has zero derivative);
-    # at clipped borders the finite differences vanish, matching autodiff
-    dx = jnp.sum(g * ((v01 - v00) * (1 - wyc) + (v11 - v10) * wyc), axis=-1)
-    dy = jnp.sum(g * ((v10 - v00) * (1 - wxc) + (v11 - v01) * wxc), axis=-1)
-    return dt, dx, dy
-
-
-def _tex_grad_mxu(g, x, y, H, W, B, P, chunk=8192):
-    """Texture gradient as MXU matmuls instead of scatter-add.
-
-    XLA's scatter-add processes ~10-20M update rows/s on TPU (~14 ms for
-    the 4-tap 512^2 backward); the same reduction as two separable one-hot
-    "hat" matrices contracted on the MXU runs in ~2 ms:
-
-        dT[b, v, u*c] = sum_p  V[b, p, v] * (U[b, p, u] (x) g[b, p, c])
-
-    where U/V put the bilinear tap weights at the clipped corner indices —
-    numerically identical to the scatter (same products, f32 accumulate).
-
-    Returns (B*H*W, C) gradient rows.
-    """
-    C = g.shape[-1]
-    Pb = P
-    pad = (-Pb) % chunk
-    nch = (Pb + pad) // chunk
-
-    def prep(a, fill=0.):
-        a = a.reshape(B, Pb)
-        a = jnp.pad(a, ((0, 0), (0, pad)), constant_values=fill)
-        return a.reshape(B, nch, chunk).transpose(1, 0, 2)   # (nch, B, CH)
-
-    x0 = jnp.floor(x)
-    y0 = jnp.floor(y)
-    xs = (prep(x0), prep(x - x0))
-    ys = (prep(y0), prep(y - y0))
-    gs = jnp.pad(g.reshape(B, Pb, C), ((0, 0), (0, pad), (0, 0))
-                 ).reshape(B, nch, chunk, C).transpose(1, 0, 2, 3)
-
-    iu = jnp.arange(W, dtype=jnp.int32)
-    iv = jnp.arange(H, dtype=jnp.int32)
-
-    def hat(i0f, w, n, idx):
-        """(..., CH) corner base + frac -> (..., CH, n) two-tap one-hot."""
-        lo = jnp.clip(i0f.astype(jnp.int32), 0, n - 1)[..., None]
-        hi = jnp.clip(i0f.astype(jnp.int32) + 1, 0, n - 1)[..., None]
-        w = w[..., None]
-        return ((idx == lo) * (1. - w) + (idx == hi) * w)
-
-    def body(acc, inp):
-        (x0c, wxc), (y0c, wyc), gc = inp
-        U = hat(x0c, wxc, W, iu)                   # (B, CH, W)
-        V = hat(y0c, wyc, H, iv)                   # (B, CH, H)
-        Ug = (U[..., :, None] * gc[..., None, :]).reshape(
-            B, chunk, W * C)                       # (B, CH, W*C)
-        acc = acc + jnp.einsum(
-            'bph,bpk->bhk', V, Ug,
-            preferred_element_type=jnp.float32)    # (B, H, W*C)
-        return acc, None
-
-    acc0 = jnp.zeros((B, H, W * C), jnp.float32)
-    acc, _ = jax.lax.scan(
-        body, acc0, ((xs[0], xs[1]), (ys[0], ys[1]), gs))
-    return acc.reshape(B * H * W, C).astype(g.dtype)
-
-
-_bilinear_sample.defvjp(_bilinear_sample_fwd, _bilinear_sample_bwd)
 
 
 def _grid_sample_2d(image, coords_x, coords_y, mode='bilinear'):
@@ -195,8 +107,7 @@ def texture_mapping(texture_coordinates, texture_maps, mode='nearest'):
     cx = uv[..., 0].reshape(-1)
     cy = -uv[..., 1].reshape(-1)  # flip y
 
-    # unnormalize (align_corners=False); batch folded into flat row ids —
-    # batched gathers lower ~150x slower on TPU (ops/gather.py)
+    # unnormalize (align_corners=False); batch folded into flat row ids
     x = (cx + 1.) * TW / 2. - 0.5
     y = (cy + 1.) * TH / 2. - 0.5
     tex_rows = texture_maps.transpose(0, 2, 3, 1).reshape(

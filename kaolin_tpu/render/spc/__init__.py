@@ -5,5 +5,4 @@ from kaolin_tpu.render.spc.raytrace import (  # noqa: F401
 from kaolin_tpu.render.spc.raygen import (  # noqa: F401
     generate_primary_rays, generate_shadow_rays)
 from kaolin_tpu.render.spc.raster import (  # noqa: F401
-    CoherentHits, CellTable, build_cell_table,
-    unbatched_raytrace_coherent, hits_to_nuggets)
+    CoherentHits, unbatched_raytrace_coherent, hits_to_nuggets)

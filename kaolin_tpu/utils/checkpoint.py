@@ -3,7 +3,7 @@
 The reference ships only the Timelapse USD checkpoints
 (``kaolin/visualize/timelapse.py``) — geometry snapshots for
 visualization.  For training state (model params + optimizer state +
-step counters), this module adds TPU-native checkpointing (SURVEY.md §5):
+step counters), this module adds checkpointing (SURVEY.md §5):
 
 * :func:`save` / :func:`load` — orbax-backed (async-capable, sharded
   arrays supported, the standard JAX ecosystem path).

@@ -1,6 +1,6 @@
 """Profiling / micro-benchmark helpers.
 
-The reference has no in-library tracing (SURVEY.md §5); the TPU-native
+The reference has no in-library tracing (SURVEY.md §5); the
 equivalents are thin wrappers over ``jax.profiler`` plus a
 ``block_until_ready`` micro-bench harness used by ``bench.py`` and perf
 tests.

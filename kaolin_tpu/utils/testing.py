@@ -26,6 +26,9 @@ __all__ = [
     'check_tensor_attribute_shapes',
     'print_dict_attributes',
     'print_namedtuple_attributes',
+    'seeded_uv_sphere',
+    'ray_voxel_hits',
+    'compare_ray_hits',
 ]
 
 BOOL_DTYPES = [jnp.bool_]
@@ -334,3 +337,150 @@ def print_namedtuple_attributes(ntuple, name='', prefix='',
     """Same as :func:`print_dict_attributes` for a namedtuple."""
     print_dict_attributes(ntuple._asdict(), name=name, prefix=prefix,
                           **tensor_info_kwargs)
+
+
+def ray_voxel_hits(points, level, origin, direction, ray_ids=None,
+                   voxel_ids=None, tol=1e-5, chunk=1 << 20):
+    """Float64 slab test of rays against the voxels of one octree level:
+    the plain reference for the SPC ray tracers.
+
+    Voxel ``p`` spans ``[p * s - 1, (p + 1) * s - 1]`` per axis with
+    ``s = 2 / 2**level``; a ray hits it where ``t_far > t_near > 0``, with
+    the tracers' 1e-12 clamp on direction components.
+
+    Args:
+        points: (V, 3) integer voxel coordinates at ``level``.
+        origin, direction: (N, 3) rays.
+        ray_ids, voxel_ids: the (ray, voxel) pairs to test; every pair
+            when both are None.
+        tol: depth margin within which a pair counts as grazing.
+        chunk: pairs tested per numpy pass.
+
+    Returns:
+        (ray_ids, voxel_ids, t_near, t_far, grazing) of the pairs that hit
+        or miss by less than ``tol``; ``grazing`` marks those within
+        ``tol`` of the boundary, which a float32 tracer may decide either
+        way.
+    """
+    points = np.asarray(points, np.float64)
+    o = np.asarray(origin, np.float64)
+    d = np.asarray(direction, np.float64)
+    if ray_ids is None:
+        ray_ids, voxel_ids = (a.ravel() for a in np.meshgrid(
+            np.arange(o.shape[0]), np.arange(points.shape[0]),
+            indexing='ij'))
+    ray_ids = np.asarray(ray_ids, np.int64)
+    voxel_ids = np.asarray(voxel_ids, np.int64)
+    d = np.where(np.abs(d) < 1e-12, np.where(d < 0, -1e-12, 1e-12), d)
+    inv = 1. / d
+    side = 2. / (1 << level)
+    out = []
+    for s in range(0, ray_ids.shape[0], chunk):
+        r, v = ray_ids[s:s + chunk], voxel_ids[s:s + chunk]
+        t0 = (points[v] * side - 1. - o[r]) * inv[r]
+        t1 = t0 + side * inv[r]
+        tn = np.minimum(t0, t1).max(-1)
+        tf = np.maximum(t0, t1).min(-1)
+        near = (tf - tn > -tol) & (tf > -tol) & (tn > -tol)
+        graze = (tf - tn <= tol) | (tn <= tol)
+        out.append((r[near], v[near], tn[near], tf[near], graze[near]))
+    return tuple(np.concatenate(x) for x in zip(*out))
+
+
+def compare_ray_hits(ridx, vidx, depths, reference, num_voxels):
+    """Compare a tracer's hits with :func:`ray_voxel_hits`.
+
+    Args:
+        ridx, vidx: (n,) traced ray and level-local voxel ids.
+        depths: (n, 2) traced entry and exit depths.
+        reference: the output of :func:`ray_voxel_hits`.
+        num_voxels: voxel count of the level (for the pair keys).
+
+    Returns:
+        dict with ``missing`` (reference hits, not grazing, that were not
+        traced), ``extra`` (traced pairs the reference does not come near),
+        ``grazing`` (reference pairs within ``tol`` of the boundary, which
+        may go either way), ``depth_err`` (largest depth difference over
+        the traced pairs) and the two hit counts.
+    """
+    rr, rv, rtn, rtf, graze = reference
+    key_t = np.asarray(ridx, np.int64) * num_voxels + np.asarray(vidx)
+    key_r = rr * num_voxels + rv
+    order = np.argsort(key_r)
+    key_r, rtn, rtf, graze = key_r[order], rtn[order], rtf[order], \
+        graze[order]
+    pos = np.clip(np.searchsorted(key_r, key_t), 0, max(len(key_r) - 1, 0))
+    found = (key_r[pos] == key_t) if len(key_r) else \
+        np.zeros(key_t.shape, bool)
+    traced = np.zeros(key_r.shape, bool)
+    traced[pos[found]] = True
+    depths = np.asarray(depths, np.float64)
+    err = np.abs(depths[found] - np.stack([rtn, rtf], -1)[pos[found]])
+    return {'traced': int(key_t.shape[0]),
+            'reference': int((~graze).sum()),
+            'missing': int((~graze & ~traced).sum()),
+            'extra': int((~found).sum()),
+            'grazing': int(graze.sum()),
+            'depth_err': float(err.max()) if err.size else 0.}
+
+
+def _icosahedron():
+    t = (1. + 5. ** 0.5) / 2.
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]],
+                 np.float64)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                  [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                  [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                  [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]])
+    return v / np.linalg.norm(v, axis=-1, keepdims=True), f
+
+
+def seeded_uv_sphere(num_faces=10_000, seed=0, noise=0.02):
+    """Closed, UV-mapped test mesh: a geodesic icosphere with radial noise.
+
+    Each icosahedron face is split into ``k * k`` triangles with
+    ``k = round(sqrt(num_faces / 20))`` (10k -> 9,680 faces, 40k -> 40,500),
+    vertices are pushed to the unit sphere and scaled radially by
+    ``1 + noise * u``, ``u ~ U(-1, 1)`` drawn from ``seed``.  UVs are
+    spherical (longitude, latitude) per vertex.
+
+    Returns:
+        :class:`~kaolin_tpu.rep.SurfaceMesh` with numpy ``vertices (V, 3)``
+        float32, ``faces (F, 3)`` int32, ``uvs (V, 2)`` float32 and
+        ``face_uvs_idx`` (= ``faces``).
+    """
+    from kaolin_tpu.rep import SurfaceMesh
+    k = max(1, int(round((num_faces / 20.) ** 0.5)))
+    iv, ifc = _icosahedron()
+    # lattice (i, j), i + j <= k, on every icosahedron face
+    i, j = np.nonzero(np.add.outer(np.arange(k + 1), np.arange(k + 1)) <= k)
+    lid = -np.ones((k + 1, k + 1), np.int64)
+    lid[i, j] = np.arange(i.shape[0])
+    a, b, c = (iv[ifc[:, n]][:, None] for n in range(3))
+    pts = a + (b - a) * (i / k)[None, :, None] + (c - a) * (j / k)[None, :,
+                                                                   None]
+    pts = pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    # shared edge points are recomputed per face: merge them by position
+    _, vid, inv = np.unique(np.round(pts.reshape(-1, 3), 9), axis=0,
+                            return_index=True, return_inverse=True)
+    order = np.argsort(vid)                 # stable, first-seen order
+    remap = np.empty_like(order)
+    remap[order] = np.arange(order.shape[0])
+    verts = pts.reshape(-1, 3)[vid[order]]
+    glob = remap[inv.reshape(-1)].reshape(20, -1)
+    ii, jj = np.nonzero(np.add.outer(np.arange(k), np.arange(k)) < k)
+    up = np.stack([lid[ii, jj], lid[ii + 1, jj], lid[ii, jj + 1]], -1)
+    ii, jj = np.nonzero(np.add.outer(np.arange(k), np.arange(k)) < k - 1)
+    down = np.stack([lid[ii + 1, jj], lid[ii + 1, jj + 1], lid[ii, jj + 1]],
+                    -1)
+    faces = glob[:, np.concatenate([up, down])].reshape(-1, 3)
+    rng = np.random.default_rng(seed)
+    verts = verts * (1. + noise * rng.uniform(-1., 1., (verts.shape[0], 1)))
+    n = verts / np.linalg.norm(verts, axis=-1, keepdims=True)
+    uvs = np.stack([0.5 + np.arctan2(n[:, 2], n[:, 0]) / (2. * np.pi),
+                    0.5 + np.arcsin(np.clip(n[:, 1], -1., 1.)) / np.pi], -1)
+    faces = faces.astype(np.int32)
+    return SurfaceMesh(vertices=verts.astype(np.float32), faces=faces,
+                       uvs=uvs.astype(np.float32), face_uvs_idx=faces)

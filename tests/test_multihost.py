@@ -1,7 +1,7 @@
 """Multi-host execution test: 2 CPU processes x 4 virtual devices.
 
 The reference has nothing distributed (SURVEY.md §2.3); this validates
-the TPU-native multi-host path (driver config #5): each process feeds
+the multi-host path (driver config #5): each process feeds
 its host-local view shard, the mesh spans both processes, and the
 psum'd loss/gradients must be identical across processes and equal to
 the single-process value.

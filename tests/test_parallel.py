@@ -1,6 +1,6 @@
-"""Multi-chip sharding tests on the 8-device virtual CPU mesh
-(SURVEY.md §4: the TPU-native equivalent of the reference's missing
-distributed layer, exercised without pods)."""
+"""Multi-device sharding tests on the 8-device virtual CPU mesh
+(SURVEY.md §4: the reference has no distributed layer; this one is
+exercised without a cluster)."""
 import numpy as np
 import pytest
 import jax
@@ -8,6 +8,7 @@ import jax.numpy as jnp
 
 from kaolin_tpu.parallel import (make_mesh, multi_view_grad, replicate,
                                  shard_views)
+from kaolin_tpu.utils.testing import seeded_uv_sphere
 
 
 @pytest.fixture
@@ -50,14 +51,12 @@ def test_multi_view_grad_matches_single_device(eight_devices):
 def test_sharded_dibr_render_matches_single(eight_devices):
     """Views sharded over the mesh produce the same images as unsharded
     (spatial DP of the renderer — driver config #5 miniature)."""
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
     from kaolin_tpu.models import inverse_render as M
-    from kaolin_tpu.io import obj
 
     mesh = make_mesh((8,), ('data',))
-    m = obj.import_mesh('/root/reference/sample_data/meshes/ico_smooth.obj',
-                        triangulate=True)
+    m = seeded_uv_sphere(320)
     faces = jnp.asarray(np.asarray(m.faces))
     face_uvs = jnp.asarray(np.asarray(m.uvs)[np.asarray(m.face_uvs_idx)])
     params = M.init_params(m, texture_res=16)
@@ -74,7 +73,7 @@ def test_sharded_dibr_render_matches_single(eight_devices):
     sharded = shard_map(
         render_local, mesh=mesh,
         in_specs=(P(), P('data'), P('data')),
-        out_specs=P('data'), check_rep=False)
+        out_specs=P('data'), check_vma=False)
     imgs_sharded = sharded(params, views.camera_rot, views.camera_trans)
     imgs_single = render_local(params, views.camera_rot,
                                views.camera_trans)
@@ -83,18 +82,16 @@ def test_sharded_dibr_render_matches_single(eight_devices):
 
 
 def test_sharded_fused_selection_matches_single(eight_devices):
-    """The fused Pallas selection engine (interpret mode off-TPU) under
-    shard_map: per-device view shards must reproduce the unsharded
-    selection exactly (VERDICT r3 #4 — the production backend had never
-    executed under sharding)."""
-    from jax.experimental.shard_map import shard_map
+    """The fused Pallas selection engine (interpreted) under shard_map:
+    per-device view shards must reproduce the unsharded selection
+    exactly."""
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
     from kaolin_tpu.models import inverse_render as M
-    from kaolin_tpu.io import obj
+    from kaolin_tpu.render.mesh import fused_selection
 
     mesh = make_mesh((8,), ('data',))
-    m = obj.import_mesh('/root/reference/sample_data/meshes/ico_smooth.obj',
-                        triangulate=True)
+    m = seeded_uv_sphere(320)
     faces = jnp.asarray(np.asarray(m.faces))
     params = M.init_params(m, texture_res=16)
     views = M.make_views(8)
@@ -102,14 +99,15 @@ def test_sharded_fused_selection_matches_single(eight_devices):
 
     def select_local(p, rot, trans):
         v = M.CameraViews(rot, trans, views.camera_proj)
-        face_idx, sel = M.compute_selection(p, v, faces, H, W,
-                                            backend='fused')
-        return face_idx, sel.prod
+        fvc, fvi, fn = M._prepare(p, v, faces)
+        sel = fused_selection(fvc[..., 2], fvi, fn[..., 2] >= 0., H, W,
+                              interpret=True)
+        return sel.face_idx, sel.prod
 
     sharded = shard_map(
         select_local, mesh=mesh,
         in_specs=(P(), P('data'), P('data')),
-        out_specs=(P('data'), P('data')), check_rep=False)
+        out_specs=(P('data'), P('data')), check_vma=False)
     fid_s, prod_s = sharded(params, views.camera_rot, views.camera_trans)
     fid_1, prod_1 = select_local(params, views.camera_rot,
                                  views.camera_trans)
@@ -122,11 +120,11 @@ def test_graft_entry_dryrun(monkeypatch):
     import importlib
     import __graft_entry__ as g
     importlib.reload(g)
-    fn, args = g.entry()
+    fn, args = g.entry(num_faces=320)
     out = jax.jit(fn)(*args)
     assert out[0].shape == (1, 512, 512, 3)
     monkeypatch.setenv('KAOLIN_DRYRUN_RES', '64')
-    g.dryrun_multichip(4)
+    g.dryrun_multichip(4, num_faces=320)
 
 
 def test_tile_sharded_render_loss_grads_match_single(eight_devices):
@@ -136,11 +134,9 @@ def test_tile_sharded_render_loss_grads_match_single(eight_devices):
     nothing computed a gradient across the tile axis before)."""
     from kaolin_tpu.parallel.tile import tile_sharded_render_loss
     from kaolin_tpu.models import inverse_render as M
-    from kaolin_tpu.io import obj
 
     mesh2d = make_mesh((2, 4), ('data', 'tile'))
-    m = obj.import_mesh('/root/reference/sample_data/meshes/ico_smooth.obj',
-                        triangulate=True)
+    m = seeded_uv_sphere(320)
     faces = jnp.asarray(np.asarray(m.faces))
     face_uvs = jnp.asarray(np.asarray(m.uvs)[np.asarray(m.face_uvs_idx)])
     params = M.init_params(m, texture_res=8)
@@ -169,32 +165,16 @@ def test_tile_sharded_render_loss_grads_match_single(eight_devices):
                                    rtol=1e-4, atol=1e-5)
 
 
-def test_weak_scale_worker_point(eight_devices, capsys, monkeypatch):
-    """One point of the config-#5 weak-scaling sweep in-process at a
-    tiny shape (the full 1024^2 sweep only runs from the driver's
-    dryrun)."""
-    import __graft_entry__ as g
-    monkeypatch.setenv('KAOLIN_WS_NDEV', '4')
-    monkeypatch.setenv('KAOLIN_WS_MESH', '2x2')
-    monkeypatch.setenv('KAOLIN_WS_RES', '32')
-    monkeypatch.setenv('KAOLIN_WS_VPD', '1')
-    g._weak_scale_worker()
-    out = capsys.readouterr().out
-    assert 'WEAK_SCALE_OK' in out and 'views=4' in out
-
-
 def test_tile_sharded_selection_matches_single(eight_devices):
     """Image rows sharded over a (data, tile) mesh reproduce the
     unsharded z-buffer selection exactly (SURVEY §2.3 tile axis)."""
     from kaolin_tpu.parallel.tile import tile_sharded_selection
     from kaolin_tpu.render.mesh.rasterization import rasterize_selection
     from kaolin_tpu.models import inverse_render as M
-    from kaolin_tpu.io import obj
     import kaolin_tpu as kal
 
     mesh2d = make_mesh((2, 4), ('data', 'tile'))
-    m = obj.import_mesh('/root/reference/sample_data/meshes/ico_smooth.obj',
-                        triangulate=True)
+    m = seeded_uv_sphere(320)
     faces = jnp.asarray(np.asarray(m.faces))
     params = M.init_params(m, texture_res=16)
     views = M.make_views(2)
